@@ -1,18 +1,13 @@
 """Quickstart: the full capability surface in one script.
 
-Run: python examples/quickstart.py   (CPU or TPU)
+Run: python examples/quickstart.py   (on JAX's default backend: the GPU when
+one is attached; JAX_PLATFORMS=cpu runs it on the CPU)
 """
 import os
 import sys
 import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-# keep the example snappy anywhere; set TPI_EXAMPLE_TPU=1 to use a real TPU
-import jax
-
-if not os.environ.get("TPI_EXAMPLE_TPU"):
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

@@ -1,7 +1,7 @@
 """Serving lifecycle demo: live index -> device snapshot -> mesh fan-out.
 
-Runs on a virtual 8-device CPU mesh (no TPU pod needed); on real hardware
-the same code spreads the shard axis over the chips. Shows:
+Runs on a virtual 8-device CPU mesh (no multi-GPU host needed); on real
+hardware the same code spreads the shard axis over the cards. Shows:
 
   1. ingest + compaction on the live (host) index
   2. QueryEngine serving with O(delta) incremental refresh

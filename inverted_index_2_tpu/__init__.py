@@ -1,11 +1,11 @@
-"""inverted_index_2_tpu — a TPU-native LSM inverted-index engine.
+"""inverted_index_2_tpu — an accelerator-native LSM inverted-index engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Go library
+A from-scratch JAX/XLA re-design of the capabilities of the Go library
 lezhnev74/inverted_index_2 (reference mounted at /root/reference): byte-string
 terms -> sorted unique uint32 postings, immutable on-disk segments, background
 k-way merging with timestamped tombstone purge, 10-bit-prefix sharding, range
 reads and prefix search — with the codec/search/merge/query hot paths as
-vectorized array programs on TPU and only I/O + bookkeeping on the host.
+vectorized array programs on the GPU and only I/O + bookkeeping on the host.
 
 Public surface (SURVEY.md §2.4 capability contract):
     InvertedIndex(basedir, enable_logging) .put/.read/.prefix_search/

@@ -6,7 +6,7 @@ The reference keeps an experimental roaring-bitmap codec in-tree
 a growing dictionary of distinct uint32 values per file, with each term's
 value set encoded as a bitmap over dictionary INDEXES — amortizing the value
 storage across terms that share values. We provide the same capability with a
-vectorized dense-bitmap encoding (a TPU-friendly stand-in for roaring's
+vectorized dense-bitmap encoding (an array-friendly stand-in for roaring's
 container machinery): bitmaps over dictionary indexes are small because
 indexes are dense by construction, which is exactly the regime where roaring
 degrades to its dense (bitset) container anyway.

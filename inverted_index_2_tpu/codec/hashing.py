@@ -1,6 +1,6 @@
 """Open-addressing hash table over packed term keys (exact batched lookup).
 
-Binary search costs ~log2(N) dependent HBM gathers per query — TPU-hostile
+Binary search costs ~log2(N) dependent device-memory gathers per query
 (each step is a tiny serialized gather). For EXACT lookups (the headline
 query path; range/prefix still binary-search) a linear-probe hash table cuts
 that to ~2-4 gathers: hash the packed key row with vector ops (no memory
@@ -126,7 +126,7 @@ def probe_rows_np(slots: np.ndarray, max_probes: int, keys: np.ndarray,
         return out
     from . import native
 
-    if native.available():  # ~10x this numpy walk on a 1-vCPU host
+    if native.available():  # far faster than this numpy walk
         return native.hash_probe(keys, slots, max_probes, qkeys).astype(
             np.int64
         )

@@ -1,8 +1,8 @@
-"""Fixed-width term sort keys: exact bytes.Compare order on TPU-friendly arrays.
+"""Fixed-width term sort keys: exact bytes.Compare order on fixed-shape arrays.
 
 The reference stores terms in a vellum FST (sorted byte-string dictionary,
-/root/reference/file/writer.go:35, reader.go:139-150). A TPU cannot walk an
-automaton; instead each term is packed into a fixed-width row of uint32 words:
+/root/reference/file/writer.go:35, reader.go:139-150). A batched array
+program cannot walk an automaton; instead each term is packed into a fixed-width row of uint32 words:
 
     key(term) = [ big-endian 4-byte groups of term, zero-padded to W words,
                   len(term) ]                                  -> (W+1,) uint32
@@ -66,8 +66,8 @@ def pack_terms(terms: list[bytes], width: int | None = None) -> np.ndarray:
     """Pack a list of byte-string terms into an (n, W+1) uint32 key matrix."""
     blob = b"".join(terms)
     offsets = np.zeros(len(terms) + 1, dtype=np.int64)
-    # fromiter(map(len, ...)) skips the intermediate Python list (~2x on
-    # the 1-vCPU host; packing is on the serving hot path)
+    # fromiter(map(len, ...)) skips the intermediate Python list (packing
+    # is on the serving hot path)
     np.cumsum(
         np.fromiter(map(len, terms), dtype=np.int64, count=len(terms)),
         out=offsets[1:],

@@ -2,8 +2,9 @@
 
 The native library implements the exact wire layout of packing.py; this
 module exposes drop-in bulk encode/decode that packing.py dispatches to when
-the shared object is present (built via `make -C native`, auto-built on first
-import when a compiler is available). Falls back silently to the numpy
+the shared object is present (built via `make -C native`, and rebuilt on
+first use whenever it is missing or older than its sources, when a compiler
+is available). Falls back silently to the numpy
 implementations otherwise — results are bit-identical either way (asserted by
 tests/test_native.py).
 """
@@ -28,6 +29,41 @@ _lib = None
 _lib_lock = threading.Lock()
 _tried = False
 
+_SOURCES = ("codec.cpp", "Makefile")
+
+
+def _stale(native_dir: str) -> bool:
+    """The library is missing or older than a source it is built from."""
+    so = os.path.join(native_dir, os.path.basename(_SO_PATH))
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(
+        os.path.getmtime(p) > built
+        for p in (os.path.join(native_dir, f) for f in _SOURCES)
+        if os.path.exists(p)
+    )
+
+
+def _ensure_built(native_dir: str) -> bool:
+    """Run `make` in `native_dir` when the library is stale (it is built
+    with -march=native, so a library built on another CPU, or from older
+    sources, must not be loaded as it is). Returns False if a needed build
+    failed."""
+    if not (os.path.exists(os.path.join(native_dir, "Makefile"))
+            and _stale(native_dir)):
+        return True
+    try:
+        subprocess.run(
+            ["make", "-C", native_dir, "-s"],
+            check=True,
+            capture_output=True,
+            timeout=300,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
+
 
 def _load():
     global _lib, _tried
@@ -39,18 +75,8 @@ def _load():
         _tried = True
         if os.environ.get("TPI_DISABLE_NATIVE"):
             return None
-        if not os.path.exists(_SO_PATH) and os.path.exists(
-            os.path.join(_NATIVE_DIR, "Makefile")
-        ):
-            try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR, "-s"],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                return None
+        if not _ensure_built(_NATIVE_DIR):
+            return None
         if not os.path.exists(_SO_PATH):
             import logging
 

@@ -1,12 +1,12 @@
 """Posting-list compression codec: delta + per-block horizontal bit-packing.
 
-TPU-native replacement for the reference's `intcomp.CompressUint32` /
+Vectorizable replacement for the reference's `intcomp.CompressUint32` /
 `UncompressUint32` (used at /root/reference/file/writer.go:49 and
 /root/reference/file/reader.go:100). The reference delegates to a
 FastPFoR-family Go library (delta + binary packing in blocks of 128); we use
 the same block structure with a layout whose DECODE is a fixed-shape vector
 program (per-lane double-word fetch + shift/mask + cumsum) that runs
-identically in numpy (host), jax.numpy (XLA) and Pallas (TPU VMEM).
+identically in numpy (host) and jax.numpy (XLA, on the device).
 
 Layout (all little-endian uint32 words):
 
@@ -81,7 +81,7 @@ def encode_bulk(values: np.ndarray, value_offsets: np.ndarray, byte_align: bool 
 
     byte_align rounds each block's bit width up: 1/True -> whole bytes
     (b in {0,8,16,24,32}), 2 -> power-of-two bytes ({0,8,16,32}; the device
-    arena uses this so the Pallas decoder needs no 24-bit lane layout).
+    arena uses this).
     Same wire layout either way (a byte-multiple b is just a particular b),
     ~15-50% larger, but every delta's bytes land at STATIC word/shift
     positions — the device decoder then needs no dynamic per-lane gather.

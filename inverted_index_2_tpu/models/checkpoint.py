@@ -1,13 +1,13 @@
 """Serving-snapshot checkpointing: persist the compact host tables behind a
 frozen QueryEngine build so a serving restart skips segment scan, k-way
 merge, posting re-encode and hash-table build — the expensive half of
-``QueryEngine.from_index`` (measured seconds at 1M terms, ~17-25s at 10M;
-PERFORMANCE.md) — and pays only one file read plus the device upload.
+``QueryEngine.from_index`` (seconds at 1M terms, tens of seconds at 10M)
+— and pays only one file read plus the device upload.
 
 The reference has no analogue: its index IS its checkpoint (immutable
 segments + removed.list, /root/reference/shard.go:300-359, SURVEY §5) and
 reopen just re-reads FST headers. That property is preserved here (our
-segment layer recovers the same way); this module adds the TPU-serving
+segment layer recovers the same way); this module adds the device-serving
 warm-start ON TOP, because rebuilding device tables is where our startup
 cost lives.
 

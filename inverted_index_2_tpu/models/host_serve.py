@@ -266,14 +266,13 @@ class HostServingMixin:
             qk = keys_mod.pack_terms(flat_terms, width=st.host_q_width())
         dd = self._host_dedup_group(qk, koffs, op)
         if dd is not None:
-            # cross-query dedup (r5, extending VERDICT r4 #5's lever to the
-            # host route — the one serving full-result OR, the output-bound
-            # op): serve each distinct (term-sequence) query once, fan the
-            # columnar results back out with one vectorized gather. A
-            # duplicate query is the same pure function of (state, query),
-            # so fan-out is bit-identical; a dup costs ~the output copy
-            # (~4 us/query at config-3 OR) instead of the full decode +
-            # k-way union (~15 us).
+            # cross-query dedup on the host route (the one serving
+            # full-result OR, the output-bound op): serve each distinct
+            # (term-sequence) query once, fan the columnar results back out
+            # with one vectorized gather. A duplicate query is the same pure
+            # function of (state, query), so fan-out is bit-identical; a dup
+            # costs ~the output copy instead of the full decode + k-way
+            # union.
             qk_u, koffs_u, gid = dd
             uvals, uvoffs = self._host_serve_columnar(qk_u, koffs_u, op,
                                                       filter_removed, st)
@@ -290,11 +289,10 @@ class HostServingMixin:
         MERGES candidate groups and the adjacent full-row verify re-splits
         them, so grouping never conflates distinct queries.
 
-        Unlike the fused-AND stream's fixed-K rows, host queries are ragged
+        Unlike the device stream's fixed-K rows, host queries are ragged
         (k varies 1..8+); each query canonicalizes to one padded int64 row
         [k, key words..., 0-pad] — zero-padding cannot collide because k
-        leads the row. ~2.7 MB and ~1-2 ms for an 8192x8-term batch,
-        against a ~33 ms full-OR serve (measured r5)."""
+        leads the row (~2.7 MB for an 8192x8-term batch)."""
         nq = len(koffs) - 1
         mode = os.environ.get("TPI_HOST_DEDUP", "1")
         if mode == "0" or nq < 256:
@@ -315,9 +313,9 @@ class HostServingMixin:
         nu_h = len(np.unique(h))
         saved = nq - nu_h
         # benefit gate (same shape as _dedup_batch's): saved queries x
-        # measured per-query serve cost must clear ~2x the ~2 ms grouping +
-        # fan-out overhead. Host serve costs (config-3, r5): OR ~15 us
-        # (decode+union+output), AND ~3.3 us (block-skip intersect).
+        # per-query serve cost must clear ~2x the ~2 ms grouping + fan-out
+        # overhead. Assumed host serve costs per query: OR 12 us
+        # (decode+union+output), AND 3 us (block-skip intersect).
         cost_us = 12.0 if op == "or" else 3.0
         if mode != "force" and saved * cost_us < 2 * 2000.0:
             return None
@@ -415,12 +413,11 @@ class HostServingMixin:
             out.append(res)
         return _rows_to_columnar(out)
 
-    # measured breakevens at config-3. Full-result OR: the device route is
-    # min(kernel 70.7k, link_bytes_per_s / ~20 KB per query of output) and
-    # the SIMD host serve measured 61.3k QPS with ZERO link bytes -> the
-    # device only wins once the link moves ~61k * 20 KB ≈ 1.2 GB/s
-    # (PCIe-local chips clear it; network-attached/tunneled ones do not).
-    # Non-staged AND: host serve ~280k vs a dispatch-latency-bound device
-    # round trip — kept at a conservative 256 MB/s (a proxy for "remote
-    # link"), since a fast local link makes the one-shot device path
-    # competitive and keeps the host core free.
+    # link breakevens, set on another accelerator behind a slow remote link
+    # and not yet measured on a PCIe-attached card. Full-result OR: the
+    # device route is bounded by link bytes (~20 KB per query of output at
+    # config-3) while the SIMD host serve moves ZERO link bytes, so the
+    # device only wins on a fast link. Non-staged AND: host serve vs a
+    # dispatch-latency-bound device round trip — a conservative 256 MB/s,
+    # since a fast local link makes the one-shot device path competitive
+    # and keeps the host core free.

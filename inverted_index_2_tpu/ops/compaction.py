@@ -1,26 +1,22 @@
-"""Stable left-compaction of masked rows: sort wins on TPU (measured).
+"""Stable left-compaction of masked rows.
 
 Every set-op formulation ends with "keep these lanes, drop the rest,
-pack survivors to the left in order". Two device formulations:
+pack survivors to the left in order". Three device formulations, all
+bit-identical (tests/test_ops.py):
 
-* SORT (production): `sort(where(keep, vals, SENTINEL), axis=1)` — a
-  full O(log^2 S) compare-exchange network, but every stage is pure
-  vector min/max with static layouts.
-* GATHER (kept as a measured NEGATIVE result): cumsum of the keep mask
-  + a branchless batched binary search for each output rank — only
-  ~2*log2(S) passes, but each pass is a (Q, S) `take_along_axis` along
-  the LANE axis, and TPU lane gathers pay per-element cost. On the
-  attached v5e at (2048, 4096) u32: sort 7.3 ms vs gather 1213 ms —
-  165x SLOWER despite the asymptotic advantage, and the (2048, 16384)
-  shape faulted the device. This is the same wall documented for the
-  batched-binary-search membership test in setops.intersect_many
-  (gathers ~0.13G elem/s) — asymptotics do not beat lane-parallel
-  compare networks on this hardware.
+* SORT (default): `sort(where(keep, vals, SENTINEL), axis=1)` — a full
+  sort of the row; valid because every call site's kept lanes ascend.
+* GATHER (compact_keep): cumsum of the keep mask + a branchless batched
+  binary search for each output rank — ~2*log2(S) (Q, S) lane gathers.
+* SHIFT (compact_shift): cumsum + log2(S) monotone static lane shifts,
+  no gathers, no sort.
 
-compact_rows dispatches on TPI_COMPACT (default "sort"); compact_keep
-stays importable and correctness-tested (tests/test_ops.py) so future
-hardware (or a Mosaic dynamic-gather path) can re-evaluate the A/B
-without rebuilding it.
+On one H100 80GB HBM3 (400 W power limit), u32 rows, 30% kept: at
+(2048, 4096) sort 0.781 ms, gather 0.777 ms, shift 0.855 ms (medians of
+20); at (2048, 16384) sort 1.438 ms, gather 1.923 ms, shift 3.174 ms
+(experiments/gpu_and_profile.py). Sort ties gather at the smaller shape
+and wins at the larger, so it stays the default; TPI_COMPACT=gather keeps
+the A/B one environment variable away.
 """
 from __future__ import annotations
 
@@ -38,8 +34,8 @@ import numpy as np
 # embeds as a jaxpr literal instead — no extra parameter, no bug.
 SENTINEL = np.uint32(0xFFFFFFFF)
 
-# "sort" measured 165x faster than "gather" on the attached v5e (module
-# docstring); the knob exists so the A/B stays one env var away
+# "sort" is the faster formulation on the GPU (module docstring); the knob
+# keeps the A/B one env var away
 USE_GATHER = _os.environ.get("TPI_COMPACT", "sort") == "gather"
 
 
@@ -103,8 +99,7 @@ def compact_keep(vals: jnp.ndarray, keep: jnp.ndarray, fill=SENTINEL):
     where out[:, :oc] are the kept values in their original relative
     order and out[:, oc:] == fill. No ordering requirement on vals —
     stability alone makes sorted inputs stay sorted. See module
-    docstring: correct everywhere, measured 165x SLOWER than the sort
-    on TPU (lane-gather bound) — not the production path.
+    docstring: correct everywhere, not the default path.
     """
     Q, S = vals.shape
     pos = jnp.cumsum(keep.astype(jnp.int32), axis=1)      # (Q, S) 1-based

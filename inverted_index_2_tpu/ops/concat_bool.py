@@ -148,14 +148,10 @@ def boolean_concat_step(
     SB: static total-block budget per query (callers group queries so that
     every query's blocks fit: sum_k ceil(raw_k/128) <= SB).
 
-    compactor: the final left-compaction of kept lanes — "sort" (second
-    full sort network) or "shift" (compaction.compact_shift: cumsum +
-    log2(S) monotone lane shifts, no gathers). Bit-identical outputs.
-    "auto" = sort: at the production config-3 class mix (one-dispatch,
-    classes 32/64/128/512, on-chip A/B) sort measured 70.7k vs shift's
-    63.5k OR QPS — the shift formulation only won on a synthetic
-    equal-share mix (115.8k vs 101k); at the real mix the modal small
-    classes don't amortize its cumsum+13-pass overhead.
+    compactor: the final left-compaction of kept lanes — "sort"
+    (compaction.compact_rows) or "shift" (compaction.compact_shift: cumsum
+    + log2(S) monotone lane shifts, no gathers). Bit-identical outputs.
+    "auto" = sort.
 
     prefix_p > 0 (OR ONLY; callers must not tombstone-filter the result
     afterwards): pagination serving — compact only the first
@@ -163,12 +159,9 @@ def boolean_concat_step(
     with oc still the TRUE full count). Exact because for OR every
     distinct valid value is kept and each value occupies <= k_valid <= K
     adjacent lanes after the sort, so the j-th kept value (j <= P) sits
-    within the first P*K lanes. This removes the second full-row sort —
-    the compaction was 38% of the full-result OR kernel (on-chip
-    decomposition, round 4: decode 3.4us / sort 5.3us / dedup ~0 /
-    compaction 5.2us per query at the config-3 class mix; the windowed
-    form measured 113k vs 72k QPS). NOT valid for AND: non-kept runs
-    (< k_valid matches) can push the P-th kept value arbitrarily deep.
+    within the first P*K lanes. This removes the second full-row
+    compaction. NOT valid for AND: non-kept runs (< k_valid matches) can
+    push the P-th kept value arbitrarily deep.
 
     wire_dedup (OR ONLY; callers must not tombstone-filter afterwards):
     skip the dedup marking AND the compaction sort entirely — return the
@@ -177,10 +170,7 @@ def boolean_concat_step(
     every true wire delta is >= 1 and a ZERO delta uniquely marks a
     duplicate: the host's existing delta unpack drops them in one
     vectorized pass (models/steps._dedup_adjacent) and derives the
-    distinct count itself. Removes the second full-row sort — 38% of the
-    full-result OR kernel (on-chip round-4 decomposition: decode 3.4us /
-    sort 5.3us / compaction 5.2us per query; sort-only form measured
-    116k vs 72k QPS at the config-3 class mix).
+    distinct count itself. Removes the second full-row compaction.
 
     Returns (out (Q, S=SB*128) compacted ascending — or (Q, <=prefix_p)
     under prefix_p, or sorted-with-duplicates under wire_dedup — and
@@ -193,9 +183,24 @@ def boolean_concat_step(
     kmask = jnp.arange(K, dtype=jnp.int32)[None, :] < k_valid[:, None]
     live = found & kmask
     cnt = jnp.where(live, counts[idx], 0)            # (Q, K) raw counts
-    rows, in_use, bit, cnt_j, cum = concat_layout(term_block_start[idx], cnt, SB)
-    flat, vals, mask = decode_masked(blocks, rows, in_use, bit, cnt_j)
-    svals = jnp.sort(flat, axis=1)
+    # named scopes label the stages' kernels in a profiler trace
+    with jax.named_scope("concat_decode"):
+        rows, in_use, bit, cnt_j, cum = concat_layout(
+            term_block_start[idx], cnt, SB)
+        flat, vals, mask = decode_masked(blocks, rows, in_use, bit, cnt_j)
+    with jax.named_scope("concat_sort"):
+        svals = jnp.sort(flat, axis=1)
+    return _reduce_runs(svals, vals, mask, cnt, cum, live, kmask, found,
+                        k_valid, op, compactor, prefix_p, wire_dedup)
+
+
+@jax.named_scope("concat_compact")
+def _reduce_runs(svals, vals, mask, cnt, cum, live, kmask, found, k_valid,
+                 op, compactor, prefix_p, wire_dedup):
+    """Run-length reduction + left-compaction of boolean_concat_step's
+    sorted rows (see there)."""
+    Q, S = svals.shape
+    K = cnt.shape[1]
     first = jnp.concatenate(
         [jnp.ones((Q, 1), dtype=bool), svals[:, 1:] != svals[:, :-1]], axis=1
     )

@@ -6,8 +6,8 @@ The reference resolves ONE term at a time by walking an FST automaton
 length tiebreak — exact bytes.Compare order), and lookups are a BATCH:
 Q query rows are binary-searched simultaneously with a fixed-trip-count
 lax.fori_loop of vectorized lexicographic row compares. Every step is a gather
-of (Q, W+1) words plus VPU compares — no data-dependent control flow, fully
-jittable, runs identically on TPU and the CPU test mesh.
+of (Q, W+1) words plus elementwise compares — no data-dependent control
+flow, fully jittable, runs identically on the GPU and the CPU test mesh.
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ def hash_lookup_rows(
     max_probes: int,
 ):
     """Exact batch lookup via linear-probe hash table: ~2-4 gathers/query vs
-    ~log2(N) for binary search (the TPU-friendly exact-match path; see
+    ~log2(N) for binary search (the exact-match path; see
     codec/hashing.py). Returns (idx, found) like lookup_rows.
 
     slots: (S,) int32 (S a power of two), -1 = empty, else term index.

@@ -39,8 +39,8 @@ def _batched_searchsorted(haystack: jnp.ndarray, needles: jnp.ndarray) -> jnp.nd
     return jax.vmap(lambda h, x: jnp.searchsorted(h, x))(haystack, needles)
 
 
-# above this probe-matrix volume, the O(P*L) broadcast beats the
-# gather-heavy batched binary search on TPU only up to VMEM/HBM limits
+# up to this probe-matrix volume the O(P*L) broadcast compare is used;
+# above it, the batched binary search / sort formulations
 _BROADCAST_LIMIT = 512 * 512
 
 
@@ -50,9 +50,9 @@ def member_mask(
     """For each row: is probes[q, j] a member of lists[q, :counts[q]]?
 
     lists rows must be sorted ascending within [0, count). For small rows the
-    membership test is a broadcast equality reduction — pure VPU compares, no
-    dynamic gathers (TPU gathers have high per-element cost). Larger rows
-    fall back to a batched binary search.
+    membership test is a broadcast equality reduction — pure elementwise
+    compares, no dynamic gathers. Larger rows fall back to a batched binary
+    search.
     """
     L = lists.shape[1]
     P = probes.shape[1]
@@ -79,10 +79,10 @@ def intersect_many(
     Empty/missing required list => empty result (AND semantics).
 
     Two regimes: small rows use broadcast membership against the base list
-    (pure VPU compares); large rows use a SORT-based run-length intersection
-    (one sort of the K*L concat) — the batched binary search this replaces
-    is gather-bound on TPU (~0.13G gathered elements/s) and measured 56x
-    slower than the sort at L=2048, K=8.
+    (pure elementwise compares); large rows use a SORT-based run-length
+    intersection (one sort of the K*L concat) instead of a gather-bound
+    batched binary search (chosen on another accelerator; not yet measured
+    on the GPU).
     """
     Q, K, L = lists.shape
     if L * L > _BROADCAST_LIMIT:
@@ -156,7 +156,7 @@ def union_many(lists: jnp.ndarray, counts: jnp.ndarray, k_valid: jnp.ndarray):
     # Sort: invalid slots (== SENTINEL) land last. A genuine 0xFFFFFFFF value
     # is bit-identical to the sentinel, so any at the validity boundary are
     # interchangeable — the first n_valid slots always hold exactly the valid
-    # multiset. No 64-bit tagging needed (TPU has no native uint64 anyway).
+    # multiset. No 64-bit tagging needed.
     vals = jnp.sort(flat, axis=1)
     in_region = jnp.arange(K * L, dtype=jnp.int32)[None, :] < n_valid[:, None]
     first = jnp.concatenate(
@@ -166,10 +166,8 @@ def union_many(lists: jnp.ndarray, counts: jnp.ndarray, k_valid: jnp.ndarray):
     out_counts = jnp.sum(uniq, axis=1).astype(jnp.int32)
     # compact unique values to the front (duplicates -> SENTINEL, which
     # lands after all kept values; a kept genuine 0xFFFFFFFF is
-    # interchangeable with padding at the count boundary). compact_rows
-    # is a SORT by default: both the elementwise scatter (~3x worse) and
-    # the cumsum+binary-search gather (165x worse, ops/compaction.py)
-    # measured far behind the compare-exchange network on TPU.
+    # interchangeable with padding at the count boundary); see
+    # ops/compaction.py for the formulation compact_rows uses.
     from .compaction import compact_rows
 
     return compact_rows(vals, uniq), out_counts

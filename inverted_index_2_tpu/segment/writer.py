@@ -1,7 +1,7 @@
 """Segment writers: batch-oriented encoders with atomic publish.
 
 The reference streams TermValues one at a time into an FST builder
-(/root/reference/file/writer.go:32-59). A TPU-first design is batch-oriented:
+(/root/reference/file/writer.go:32-59). An array-first design is batch-oriented:
 callers hand over whole sorted arrays (terms blob + offsets (+ postings)) and
 the writer encodes and publishes in one shot. Two modes, mirroring the
 reference exactly:

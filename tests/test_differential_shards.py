@@ -171,11 +171,11 @@ HOSTILE_VOCAB = [
 
 @pytest.mark.parametrize("seed", [3, 0xC0FFEE, 20260817])
 def test_hostile_terms_differential(tmp_path, seed):
-    """Adversarial differential pass at the index API (VERDICT r2 item 9):
+    """Adversarial differential pass at the index API:
     hostile terms (embedded NULs, 0xFF runs, 1-byte terms, word-boundary
     lengths, shared prefixes) driven through put/put_many/put_removed/
-    merge/prefix_search/read_bulk AND the QueryEngine (fused AND in interp
-    mode) against the dict-of-sets oracle."""
+    merge/prefix_search/read_bulk AND the QueryEngine (device concat path
+    and host serve) against the dict-of-sets oracle."""
     import os
 
     rng = np.random.default_rng(seed)
@@ -245,93 +245,76 @@ def test_hostile_terms_differential(tmp_path, seed):
             for i, t in enumerate(terms_got):
                 assert set(vals[voffs[i]:voffs[i + 1]].tolist()) == data[t], t
 
-    # QueryEngine: lookup + boolean through the FUSED path (interp mode)
-    os.environ["TPI_FUSED_AND"] = "interp"
-    os.environ["TPI_PALLAS_AND"] = "1"
-    try:
-        from inverted_index_2_tpu.models.query_engine import snapshot_index
-        snap = __import__("inverted_index_2_tpu.models.query_engine", fromlist=["build_snapshot_arrays"])
-        s = snapshot_index(ii)
-        # force an aligned arena so the fused kernel is eligible off-TPU
-        if not s.arena_aligned:
-            rb = ii.read_bulk(None, None)
-            if rb is not None:
-                from inverted_index_2_tpu.models.query_engine import build_snapshot_arrays
-                s = build_snapshot_arrays(*rb, stride_align=128)
-                s.removed = __import__("jax.numpy", fromlist=["asarray"]).asarray(
-                    np.sort(np.concatenate([sh.removed_list.values() for sh in ii._snapshot()]))
-                )
-        eng = QueryEngine(s, L=256, q_bucket=8)
+    # QueryEngine: lookup + boolean through the device concat path
+    from inverted_index_2_tpu.models.query_engine import snapshot_index
+    eng = QueryEngine(snapshot_index(ii), L=256, q_bucket=8)
+    terms_all = sorted(data.keys())
+    got = eng.lookup(terms_all)
+    for t, g in zip(terms_all, got):
+        assert g is not None and set(g.tolist()) == data[t], t
+    if len(terms_all) >= 3:
+        qs = []
+        for _ in range(9):
+            k = int(rng.integers(2, 4))
+            qs.append([terms_all[i] for i in rng.choice(len(terms_all), size=k, replace=False)])
+        for op in ("and", "or"):
+            res = eng.boolean(qs, op)
+            for q, g in zip(qs, res):
+                sets = [data[t] for t in q]
+                want = set.intersection(*sets) if op == "and" else set.union(*sets)
+                assert set(g.tolist()) == want, (op, q)
+            # the pipelined concat-class stream must serve hostile
+            # terms identically
+            staged = eng.boolean_staged([qs[:5], qs[5:]], op)
+            for q, g in zip(qs, staged[0] + staged[1]):
+                sets = [data[t] for t in q]
+                want = set.intersection(*sets) if op == "and" else set.union(*sets)
+                assert set(g.tolist()) == want, ("staged", op, q)
+    # host serving routes against the same oracle: hostile terms driven
+    # through pack_blob -> hash probe -> the fused native serve
+    # (tpi_boolean_serve) and the host lookup decode
+    heng = QueryEngine.from_index(ii, L=256, q_bucket=8)
+    if heng.host_ready() and data:
         terms_all = sorted(data.keys())
-        got = eng.lookup(terms_all)
-        for t, g in zip(terms_all, got):
-            assert g is not None and set(g.tolist()) == data[t], t
-        if eng._use_fused() and len(terms_all) >= 3:
-            qs = []
-            for _ in range(9):
-                k = int(rng.integers(2, 4))
-                qs.append([terms_all[i] for i in rng.choice(len(terms_all), size=k, replace=False)])
-            for op in ("and", "or"):
-                res = eng.boolean(qs, op)
-                for q, g in zip(qs, res):
-                    sets = [data[t] for t in q]
-                    want = set.intersection(*sets) if op == "and" else set.union(*sets)
-                    assert set(g.tolist()) == want, (op, q)
-                # the pipelined stream (fused staged for AND, concat-class
-                # stream for OR) must serve hostile terms identically
-                staged = eng.boolean_staged([qs[:5], qs[5:]], op)
-                for q, g in zip(qs, staged[0] + staged[1]):
-                    sets = [data[t] for t in q]
-                    want = set.intersection(*sets) if op == "and" else set.union(*sets)
-                    assert set(g.tolist()) == want, ("staged", op, q)
-        # host serving routes against the same oracle: hostile terms driven
-        # through pack_blob -> hash probe -> the fused native serve
-        # (tpi_boolean_serve) and the host lookup decode
-        heng = QueryEngine.from_index(ii, L=256, q_bucket=8)
-        if heng.host_ready() and data:
-            terms_all = sorted(data.keys())
-            for t, g in zip(terms_all, heng.lookup_host(terms_all)):
-                assert g is not None and g.tolist() == sorted(data[t]), t
-            assert heng.lookup_host([b"definitely-not-a-term"]) == [None]
-            qs2 = [
-                [terms_all[i] for i in rng.choice(
-                    len(terms_all), size=int(rng.integers(1, 4)),
-                    replace=False)]
-                for _ in range(8)
-            ] + [[b"not-a-term", terms_all[0]], []]
-            for op in ("and", "or"):
-                res = heng.boolean_host(qs2, op)
-                for q, g in zip(qs2, res):
-                    sets = [data.get(t) for t in q]
-                    if op == "and":
-                        want = (set() if not sets or any(s is None for s in sets)
-                                else set.intersection(*sets))
-                    else:
-                        present = [s for s in sets if s is not None]
-                        want = set().union(*present) if present else set()
-                    assert g.tolist() == sorted(want), ("host", op, q)
-            # pinned DEVICE pagination with hostile terms: host-side
-            # resolve (native tpi_hash_probe) -> concat classes ->
-            # scatter-coalesced harvest -> u16 delta plane, both wire modes
-            os.environ["TPI_HOST_BOOL"] = "0"
-            try:
-                qs3 = [q for q in qs2 if q]
-                present = [
-                    sorted(set().union(*[data.get(t, set()) for t in q]))
-                    for q in qs3
-                ]
-                for wire in ("1", "0"):
-                    os.environ["TPI_WIRE"] = wire
-                    for Pp in (2, 8):
-                        vals, voffs, counts = heng.boolean_staged(
-                            [qs3], "or", columnar=True, prefix_p=Pp)[0]
-                        for i, w in enumerate(present):
-                            assert counts[i] == len(w), ("page", wire, Pp, i)
-                            assert vals[voffs[i]:voffs[i + 1]].tolist() \
-                                == w[:Pp], ("page", wire, Pp, i)
-            finally:
-                os.environ.pop("TPI_HOST_BOOL", None)
-                os.environ.pop("TPI_WIRE", None)
-    finally:
-        os.environ.pop("TPI_FUSED_AND", None)
-        os.environ.pop("TPI_PALLAS_AND", None)
+        for t, g in zip(terms_all, heng.lookup_host(terms_all)):
+            assert g is not None and g.tolist() == sorted(data[t]), t
+        assert heng.lookup_host([b"definitely-not-a-term"]) == [None]
+        qs2 = [
+            [terms_all[i] for i in rng.choice(
+                len(terms_all), size=int(rng.integers(1, 4)),
+                replace=False)]
+            for _ in range(8)
+        ] + [[b"not-a-term", terms_all[0]], []]
+        for op in ("and", "or"):
+            res = heng.boolean_host(qs2, op)
+            for q, g in zip(qs2, res):
+                sets = [data.get(t) for t in q]
+                if op == "and":
+                    want = (set() if not sets or any(s is None for s in sets)
+                            else set.intersection(*sets))
+                else:
+                    present = [s for s in sets if s is not None]
+                    want = set().union(*present) if present else set()
+                assert g.tolist() == sorted(want), ("host", op, q)
+        # pinned DEVICE pagination with hostile terms: host-side
+        # resolve (native tpi_hash_probe) -> concat classes ->
+        # scatter-coalesced harvest -> u16 delta plane, both wire modes
+        os.environ["TPI_HOST_BOOL"] = "0"
+        try:
+            qs3 = [q for q in qs2 if q]
+            present = [
+                sorted(set().union(*[data.get(t, set()) for t in q]))
+                for q in qs3
+            ]
+            for wire in ("1", "0"):
+                os.environ["TPI_WIRE"] = wire
+                for Pp in (2, 8):
+                    vals, voffs, counts = heng.boolean_staged(
+                        [qs3], "or", columnar=True, prefix_p=Pp)[0]
+                    for i, w in enumerate(present):
+                        assert counts[i] == len(w), ("page", wire, Pp, i)
+                        assert vals[voffs[i]:voffs[i + 1]].tolist() \
+                            == w[:Pp], ("page", wire, Pp, i)
+        finally:
+            os.environ.pop("TPI_HOST_BOOL", None)
+            os.environ.pop("TPI_WIRE", None)

@@ -242,7 +242,7 @@ def test_balanced_ranges_by_blocks_fix_skew(tmp_path, mesh8):
     """Skewed corpus: a narrow key band carries LONG posting lists (many
     block rows), the rest short ones. Cutting ranges on BLOCK volume keeps
     the padded arena overhead ~1.x where term-count cuts leave it badly
-    inflated (VERDICT r2 item 5)."""
+    inflated."""
     ii = InvertedIndex(str(tmp_path))
     rng = np.random.default_rng(3)
     # heavy band: terms under prefix "aa" with ~600 postings each (5 blocks)

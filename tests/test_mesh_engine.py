@@ -1,6 +1,6 @@
 """MeshQueryEngine vs single-chip QueryEngine: bit-identity on the same
 index (tombstones included), incremental refresh, ladder re-serves — the
-mesh serving-parity contract (VERDICT r2 item 4)."""
+mesh serving-parity contract."""
 import numpy as np
 import pytest
 

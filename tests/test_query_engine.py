@@ -8,6 +8,7 @@ jax = pytest.importorskip("jax")
 
 from inverted_index_2_tpu import InvertedIndex, to_slice
 from inverted_index_2_tpu.models import query_engine as qe_mod
+from inverted_index_2_tpu.models import staged as staged_mod
 from inverted_index_2_tpu.models.query_engine import QueryEngine, snapshot_index
 
 
@@ -350,7 +351,7 @@ def test_incremental_refresh_promotes_on_big_delta(tmp_path):
 def test_promotion_merges_snapshots_bit_identical(tmp_path):
     """Delta promotion folds the two SNAPSHOT tiers directly (no segment
     re-read) and must be bit-identical to a from-disk rebuild — tables AND
-    serving results (VERDICT r2 item 6)."""
+    serving results."""
     import numpy as np
 
     rng = np.random.default_rng(5)
@@ -555,8 +556,7 @@ def test_warmup_compiles_serving_programs(tmp_path):
 
 def test_boolean_staged_concat_stream(tmp_path, rng):
     """Staged OR (depth-pipelined concat-stream) is result-identical to
-    boolean() per batch — and on CPU (no fused kernel) AND streams through
-    the same path. prefix_p mode returns TRUE counts plus the first-P
+    boolean() per batch — and AND streams through the same path. prefix_p mode returns TRUE counts plus the first-P
     values per query (the pagination contract)."""
     ii, truth = build_index(tmp_path, rng, n_docs=120)
     ii.put_removed(np.asarray([3, 17], dtype=np.uint32))
@@ -664,7 +664,7 @@ def test_staged_prefix_pagination_full_bucket(tmp_path):
 
 def test_boolean_delegates_to_staged_at_bulk_q(tmp_path, rng, monkeypatch):
     """One-shot boolean() at bulk Q on the DEVICE route delegates to the
-    staged stream (VERDICT r4 #4) — same contract, pipelined machinery —
+    staged stream — same contract, pipelined machinery —
     and stays bit-identical to the direct path, tombstones and delta tier
     included."""
     ii, truth = build_index(tmp_path, rng)
@@ -1028,18 +1028,13 @@ def test_boolean_host_route_matches_device(tmp_path, rng, monkeypatch):
         lambda self, *a, **k: calls.append(a[1]) or orig(self, *a, **k),
     )
     monkeypatch.setattr(qe_mod, "_LINK_MBPS", None)
-    monkeypatch.setenv("TPI_LINK_MBPS", "33")  # tunnel-like: host routes
+    monkeypatch.setenv("TPI_LINK_MBPS", "33")  # slow link: host routes
     host_eng.boolean([[b"term001"]], "or")
     host_eng.boolean([[b"term001", b"term002"]], "and")  # non-staged: host
     assert calls == ["or", "and"]
-    # staged routes host-side too on a slow link (host serve is faster AND
-    # burst-immune); TPI_HYBRID=1 opts the staged AND into the hybrid mode
+    # staged routes host-side too on a slow link
     assert host_eng._host_boolean_route("and", staged=True)
     assert host_eng._host_boolean_route("or", staged=True)
-    monkeypatch.setenv("TPI_HYBRID", "1")
-    assert not host_eng._host_boolean_route("and", staged=True)
-    assert host_eng._host_boolean_route("and", staged=False)
-    monkeypatch.delenv("TPI_HYBRID")
     monkeypatch.setattr(qe_mod, "_LINK_MBPS", None)
     monkeypatch.setenv("TPI_LINK_MBPS", "10000")  # PCIe-like: device route
     host_eng.boolean([[b"term001"]], "or")
@@ -1122,91 +1117,8 @@ def test_boolean_host_native_matches_numpy_oracle(tmp_path, rng, monkeypatch):
             assert np.array_equal(nat[1], ref[1]), (op, fr)
 
 
-def test_boolean_staged_hybrid_matches_device(tmp_path, rng, monkeypatch):
-    """Hybrid work-stealing staged AND (device pipeline from the head, a
-    host thread through the fused native serve from the tail; explicit
-    TPI_HYBRID=1 opt-in) is bit-identical to the device-only stream,
-    including tombstone filtering and columnar wire-form batches."""
-    monkeypatch.setattr(qe_mod, "_LINK_MBPS", None)
-    monkeypatch.setenv("TPI_LINK_MBPS", "33")     # slow link
-    monkeypatch.setenv("TPI_HYBRID", "1")          # hybrid opt-in
-    monkeypatch.setenv("TPI_FUSED_AND", "interp")  # fused path off-TPU
-    ii, truth = build_index(tmp_path, rng, n_docs=80)
-    ii.put_removed([4, 11])
-    eng = QueryEngine.from_index(ii, L=128, q_bucket=8, stride_align=128)
-    assert eng._use_fused() and eng._hybrid_staged("and")
-    vocab = sorted(truth.keys())
-    rng2 = np.random.default_rng(3)
-    batches = []
-    for _ in range(6):
-        batches.append([
-            [vocab[i] for i in rng2.choice(
-                len(vocab), size=int(rng2.integers(2, 5)), replace=False)]
-            for _ in range(16)
-        ])
-    calls = []
-    orig = QueryEngine._boolean_host_columnar
-    monkeypatch.setattr(
-        QueryEngine, "_boolean_host_columnar",
-        lambda self, *a, **k: calls.append(1) or orig(self, *a, **k),
-    )
-    for fr in (False, True):
-        hyb = eng.boolean_staged(batches, "and", columnar=True,
-                                 filter_removed=fr)
-        rows_h = eng.boolean_staged(batches, "and", filter_removed=fr)
-        monkeypatch.setenv("TPI_HOST_BOOL", "0")  # pure device baseline
-        dev = eng.boolean_staged(batches, "and", columnar=True,
-                                 filter_removed=fr)
-        rows_d = eng.boolean_staged(batches, "and", filter_removed=fr)
-        monkeypatch.delenv("TPI_HOST_BOOL")
-        for (va, oa), (vb, ob) in zip(hyb, dev):
-            assert np.array_equal(va, vb) and np.array_equal(oa, ob)
-        for ba, bb in zip(rows_h, rows_d):
-            for x, y in zip(ba, bb):
-                assert np.array_equal(x, y)
-    assert calls  # the host thread actually served batches
-    # columnar wire-form batches through the hybrid stream
-    def to_cols(qs):
-        terms = [t for q in qs for t in q]
-        blob = b"".join(terms)
-        offs = np.zeros(len(terms) + 1, np.int64)
-        np.cumsum([len(t) for t in terms], out=offs[1:])
-        qoffs = np.zeros(len(qs) + 1, np.int64)
-        np.cumsum([len(q) for q in qs], out=qoffs[1:])
-        return (blob, offs, qoffs)
-    cols = [to_cols(b) for b in batches]
-    a = eng.boolean_staged(cols, "and", columnar=True)
-    monkeypatch.setenv("TPI_HOST_BOOL", "0")
-    b = eng.boolean_staged(batches, "and", columnar=True)
-    monkeypatch.delenv("TPI_HOST_BOOL")
-    for (va, oa), (vb, ob) in zip(a, b):
-        assert np.array_equal(va, vb) and np.array_equal(oa, ob)
-
-
-def test_boolean_staged_hybrid_worker_error_propagates(tmp_path, rng,
-                                                       monkeypatch):
-    """An exception in the hybrid host worker must surface from
-    boolean_staged, not die in the thread and strand its claimed batches."""
-    monkeypatch.setattr(qe_mod, "_LINK_MBPS", None)
-    monkeypatch.setenv("TPI_LINK_MBPS", "33")
-    monkeypatch.setenv("TPI_HYBRID", "1")
-    monkeypatch.setenv("TPI_FUSED_AND", "interp")
-    ii, truth = build_index(tmp_path, rng, n_docs=30)
-    eng = QueryEngine.from_index(ii, L=128, q_bucket=8, stride_align=128)
-    assert eng._hybrid_staged("and")
-    vocab = sorted(truth.keys())
-    batches = [[[vocab[0], vocab[1]]] for _ in range(4)]
-
-    def boom(self, *a, **k):
-        raise RuntimeError("injected host-serve failure")
-
-    monkeypatch.setattr(QueryEngine, "_boolean_host_columnar", boom)
-    with pytest.raises(RuntimeError, match="injected host-serve failure"):
-        eng.boolean_staged(batches, "and", columnar=True)
-
-
 def test_host_busy_load_aware_fallback(tmp_path, rng, monkeypatch):
-    """Load-aware routing (VERDICT r3 #7): with the host cores saturated
+    """Load-aware routing: with the host cores saturated
     (loadavg/core above TPI_HOST_BUSY_LOAD), the staged AND stream falls
     back to the device pipeline — the host route's zero-link-byte edge
     assumed a free CPU. One-shot AND and OR stay host-routed (the device
@@ -1224,7 +1136,7 @@ def test_host_busy_load_aware_fallback(tmp_path, rng, monkeypatch):
     assert not eng._host_boolean_route("and", staged=True)  # busy -> device
     assert eng._host_boolean_route("and", staged=False)     # one-shot: host
     # staged OR under load: best-available is the staged device concat
-    # stream (VERDICT r4 #1); one-shot OR stays host (device one-shot OR
+    # stream; one-shot OR stays host (device one-shot OR
     # is fetch-volume bound, below even a contended host)
     assert not eng._host_boolean_route("or", staged=True)
     assert eng._host_boolean_route("or", staged=False)
@@ -1236,7 +1148,6 @@ def test_host_busy_load_aware_fallback(tmp_path, rng, monkeypatch):
     assert eng._host_boolean_route("and", staged=True)
     # the busy fallback serves bit-identically through the device pipeline
     monkeypatch.setenv("TPI_HOST_BUSY_LOAD", "1.5")
-    monkeypatch.setenv("TPI_FUSED_AND", "interp")
     qs = [[b"term001", b"term002"], [b"term003"]]
     dev = eng.boolean_staged([qs], "and")
     monkeypatch.setenv("TPI_HOST_BUSY_LOAD", "0")
@@ -1246,8 +1157,8 @@ def test_host_busy_load_aware_fallback(tmp_path, rng, monkeypatch):
 
 
 def test_host_busy_engine_internal_signal(tmp_path, rng, monkeypatch):
-    """The router's PRIMARY busy signal is the engine's own index (VERDICT
-    r4 #7): is_busy() is True exactly while a put/put_removed/merge call
+    """The router's PRIMARY busy signal is the engine's own index:
+    is_busy() is True exactly while a put/put_removed/merge call
     is in flight, so the route flips within ONE batch of a merge starting
     or stopping — no 1-minute loadavg lag in either direction. The storm
     below drives a live merge loop while asserting the route choice on
@@ -1473,16 +1384,15 @@ def test_or_pagination_with_tombstones_device_route(tmp_path, rng,
 
 
 def test_staged_dedup_zipf_mix_bit_identical(tmp_path, rng, monkeypatch):
-    """Cross-query dedup in the staged fused-AND stream (VERDICT r4 #5):
-    a Zipf-style mix repeating whole queries serves each distinct term-set
-    ONCE and fans results out at assembly — bit-identical to the
-    dedup-disabled stream in every output form (columnar, rows,
-    filter_removed), including wide follow-up rows (result > small-P)
-    duplicated across the batch."""
+    """Cross-query dedup in the staged AND stream: a Zipf-style mix
+    repeating whole queries serves each distinct term-set ONCE and fans
+    results out at assembly — bit-identical to the dedup-disabled stream
+    in every output form (columnar, rows, filter_removed), including wide
+    results duplicated across the batch."""
     ii = InvertedIndex(str(tmp_path))
     truth = {}
-    # hot pair with a WIDE intersection (40 docs > STAGED_SMALL_P=8): its
-    # duplicates exercise the override fan-out, not just the small path
+    # hot pair with a WIDE intersection (40 docs): its duplicates fan out
+    # a multi-value row
     for d in range(1, 41):
         ii.put([b"hot1", b"hot2"], d)
         truth.setdefault(b"hot1", set()).add(d)
@@ -1493,14 +1403,11 @@ def test_staged_dedup_zipf_mix_bit_identical(tmp_path, rng, monkeypatch):
             ii.put([t], d)
             truth.setdefault(t, set()).add(d)
     ii.put_removed([2, 101])
-    eng = QueryEngine.from_index(ii, L=128, q_bucket=64, keep_tables=False,
-                                 stride_align=128)
+    eng = QueryEngine.from_index(ii, L=128, q_bucket=64, keep_tables=False)
     monkeypatch.setenv("TPI_HOST_BOOL", "0")      # pin the device route
-    monkeypatch.setenv("TPI_FUSED_AND", "interp")  # fused kernel off-TPU
     # "force" skips the BENEFIT gate (test batches are far too small to
     # clear the ~ms-scale crossover) but never the shrink check
     monkeypatch.setenv("TPI_STAGED_DEDUP", "force")
-    assert eng._use_fused()
     rng2 = np.random.default_rng(11)
     batches = []
     for _ in range(3):
@@ -1517,14 +1424,16 @@ def test_staged_dedup_zipf_mix_bit_identical(tmp_path, rng, monkeypatch):
                 qs.append([b"cold%02d" % int(i), b"cold%02d" % int(j)])
         batches.append(qs)
 
+    # rows the device resolve pass serves per batch (no retained tables:
+    # the concat stream resolves every batch on device)
     served_rows = []
-    orig_run = QueryEngine._fused_run_staged
+    orig_run = staged_mod._JIT_RESOLVE_SB
 
-    def spy_run(self, st, qk, kv, removed):
+    def spy_run(keys, counts, qk, *a, **k):
         served_rows.append(qk.shape[0])
-        return orig_run(self, st, qk, kv, removed)
+        return orig_run(keys, counts, qk, *a, **k)
 
-    monkeypatch.setattr(QueryEngine, "_fused_run_staged", spy_run)
+    monkeypatch.setattr(staged_mod, "_JIT_RESOLVE_SB", spy_run)
     for fr in (False, True):
         ded_cols = eng.boolean_staged(batches, "and", columnar=True,
                                       filter_removed=fr)
@@ -1672,8 +1581,8 @@ def test_host_dedup_gate_and_shrink_check(tmp_path, monkeypatch):
 
 
 def test_concat_stream_dedup_zipf_bit_identical(tmp_path, monkeypatch):
-    """Cross-query dedup in the staged CONCAT stream (r5) — the device
-    route serving OR (full + prefix_p pagination) and off-TPU staged AND:
+    """Cross-query dedup in the staged CONCAT stream — the device route
+    serving OR (full + prefix_p pagination) and staged AND:
     a Zipf mix serves unique rows once and fans out at harvest, cutting
     compute AND wire volume by the duplicate factor. Bit-identical to the
     dedup-disabled stream in every output form, tombstones included
@@ -1688,8 +1597,7 @@ def test_concat_stream_dedup_zipf_bit_identical(tmp_path, monkeypatch):
             ii.put([t], int(d))
             truth.setdefault(t, set()).add(int(d))
     ii.put_removed([7, 30])
-    eng = QueryEngine.from_index(ii, L=64, q_bucket=64, keep_tables=True,
-                                 stride_align=128)
+    eng = QueryEngine.from_index(ii, L=64, q_bucket=64, keep_tables=True)
     monkeypatch.setenv("TPI_HOST_BOOL", "0")       # pin the device route
     monkeypatch.setenv("TPI_STAGED_DEDUP", "force")
     pool = [[b"w%02d" % int(i) for i in rng2.choice(24, size=k,
@@ -1703,8 +1611,8 @@ def test_concat_stream_dedup_zipf_bit_identical(tmp_path, monkeypatch):
     served_nq = []
     orig = QueryEngine._dedup_batch
 
-    def spy(self, nq, qk, kv, row_cost_us=None):
-        r = orig(self, nq, qk, kv, row_cost_us)
+    def spy(self, nq, qk, kv):
+        r = orig(self, nq, qk, kv)
         served_nq.append((nq, r[0], r[3] is not None))
         return r
 

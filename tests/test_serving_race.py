@@ -1,6 +1,6 @@
 """Refresh-vs-serve race storm: readers hammer the serving paths WHILE a
 writer loops put / put_removed / merge / refresh — the atomic ServingState
-swap contract (VERDICT r3 #4).
+swap contract.
 
 The invariant under test is the reference's copy-on-read snapshot protocol
 (/root/reference/segments.go:25-53, inverted_index.go shard-list copies):
